@@ -12,9 +12,9 @@ import numpy as np
 import pyarrow as pa
 import pyarrow.parquet as pq
 
-from strawboat_tpu.codecs import WriteOptions
-from strawboat_tpu.constants import Compression
-from strawboat_tpu.write.writer import NativeWriter
+from strawboat.codecs import WriteOptions
+from strawboat.constants import Compression
+from strawboat.write.writer import NativeWriter
 
 
 def make_table(log2_size: int) -> pa.Table:

@@ -20,11 +20,11 @@ def main():
     import numpy as np
     import pyarrow as pa
 
-    from strawboat_tpu.codecs import WriteOptions
-    from strawboat_tpu.constants import Compression
-    from strawboat_tpu.exec import Query, col, scan_dataset
-    from strawboat_tpu.exec.dataset import file_may_match, write_dataset
-    from strawboat_tpu.exec.pruning import Comparison
+    from strawboat.codecs import WriteOptions
+    from strawboat.constants import Compression
+    from strawboat.exec import Query, col, scan_dataset
+    from strawboat.exec.dataset import file_may_match, write_dataset
+    from strawboat.exec.pruning import Comparison
 
     n = int(os.environ.get("SB_DEMO_ROWS", 300_000))
     rng = np.random.default_rng(0)

@@ -2,9 +2,9 @@
 """Distributed scan→shuffle→aggregate scaling harness (BASELINE config 5).
 
 Runs the two-stage distributed hash aggregate over an n-device mesh and
-reports rows/s at each device count plus scaling efficiency.  On this box the
-mesh is virtual CPU devices (set JAX_PLATFORMS=cpu; on a pod slice it runs
-unchanged over real chips via ICI).
+reports rows/s at each device count plus scaling efficiency.  By default the
+mesh is 8 virtual CPU devices, which checks the code path but cannot scale;
+``--gpu`` runs it over the machine's GPUs.
 
 Usage: python examples/dist_bench.py [rows_per_shard] [max_devices]
 """
@@ -15,9 +15,9 @@ import time
 
 sys.path.insert(0, ".")
 
-# a scaling sweep needs a multi-device mesh; this box has ONE real chip, so
-# default to an 8-device virtual CPU mesh (pass --tpu to use the real chips)
-if "--tpu" not in sys.argv:
+# a scaling sweep needs a multi-device mesh: default to an 8-device virtual
+# CPU mesh (pass --gpu to use the machine's GPUs)
+if "--gpu" not in sys.argv:
     flags = os.environ.get("XLA_FLAGS", "")
     if "xla_force_host_platform_device_count" not in flags:
         os.environ["XLA_FLAGS"] = (
@@ -29,13 +29,13 @@ if "--tpu" not in sys.argv:
 def main() -> int:
     import jax
 
-    if "--tpu" not in sys.argv:
+    if "--gpu" not in sys.argv:
         jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
     import numpy as np
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from strawboat_tpu.parallel import distributed_aggregate, make_mesh
+    from strawboat.parallel import distributed_aggregate, make_mesh
 
     rows_per_shard = int(sys.argv[1]) if len(sys.argv) > 1 else 1 << 18
     max_dev = int(sys.argv[2]) if len(sys.argv) > 2 else jax.device_count()

@@ -6,7 +6,7 @@ import time
 
 sys.path.insert(0, ".")
 
-from strawboat_tpu.api import read_table
+from strawboat.api import read_table
 
 
 def main() -> int:

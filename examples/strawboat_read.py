@@ -6,7 +6,7 @@ import time
 
 sys.path.insert(0, ".")
 
-from strawboat_tpu.api import iter_batches
+from strawboat.api import iter_batches
 
 
 def main() -> int:

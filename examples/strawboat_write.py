@@ -14,9 +14,9 @@ sys.path.insert(0, ".")
 
 import pyarrow.parquet as pq
 
-from strawboat_tpu.api import write_file
-from strawboat_tpu.codecs import WriteOptions
-from strawboat_tpu.constants import Compression
+from strawboat.api import write_file
+from strawboat.codecs import WriteOptions
+from strawboat.constants import Compression
 
 
 def main() -> int:

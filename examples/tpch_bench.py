@@ -17,17 +17,17 @@ def main() -> int:
     scale = float(sys.argv[1]) if len(sys.argv) > 1 else 0.1
     import numpy as np
 
-    from strawboat_tpu.api import write_file
-    from strawboat_tpu.benchsuite.tpch import (
+    from strawboat.api import write_file
+    from strawboat.benchsuite.tpch import (
         generate_lineitem,
         q1,
         q6,
         q6_numpy_reference,
         q6_pruning_predicates,
     )
-    from strawboat_tpu.codecs import WriteOptions
-    from strawboat_tpu.constants import Compression
-    from strawboat_tpu.exec import scan_file
+    from strawboat.codecs import WriteOptions
+    from strawboat.constants import Compression
+    from strawboat.exec import scan_file
 
     t0 = time.perf_counter()
     table = generate_lineitem(scale)

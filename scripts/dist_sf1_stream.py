@@ -3,7 +3,7 @@
 
 TPC-H lineitem SF1 (6M rows) written as a 12-part dataset, streamed through
 the pipelined distributed aggregate (chunked decode overlapping the keyed
-all_to_all exchange) — the same code a pod runs over ICI; here the mesh is
+all_to_all exchange) — the same code four GPUs run over NVLink; here the mesh is
 8 virtual CPU devices, so the numbers are correctness/shape evidence, not
 chip performance.  Verifies group totals exactly against numpy.
 """
@@ -27,12 +27,12 @@ def main():
 
     jax.config.update("jax_platforms", "cpu")
 
-    from strawboat_tpu.benchsuite.tpch import generate_lineitem
-    from strawboat_tpu.codecs import WriteOptions
-    from strawboat_tpu.constants import Compression
-    from strawboat_tpu.exec.dataset import write_dataset
-    from strawboat_tpu.parallel import make_mesh
-    from strawboat_tpu.parallel.pipeline import streamed_dataset_aggregate
+    from strawboat.benchsuite.tpch import generate_lineitem
+    from strawboat.codecs import WriteOptions
+    from strawboat.constants import Compression
+    from strawboat.exec.dataset import write_dataset
+    from strawboat.parallel import make_mesh
+    from strawboat.parallel.pipeline import streamed_dataset_aggregate
 
     n = int(os.environ.get("SB_ROWS", 6_000_000))
     t0 = time.perf_counter()

@@ -16,14 +16,14 @@ import pyarrow as pa
 
 import jax.numpy as jnp
 
-from strawboat_tpu.api import write_file
-from strawboat_tpu.codecs import WriteOptions
-from strawboat_tpu.constants import Compression
-from strawboat_tpu.exec import scan_file
-from strawboat_tpu.exec.aggregate import hash_aggregate
-from strawboat_tpu.exec.expr import col
-from strawboat_tpu.exec.pruning import Comparison, read_zones
-from strawboat_tpu.exec.scan import DeviceColumn, DeviceTable, scan_chunks
+from strawboat.api import write_file
+from strawboat.codecs import WriteOptions
+from strawboat.constants import Compression
+from strawboat.exec import scan_file
+from strawboat.exec.aggregate import hash_aggregate
+from strawboat.exec.expr import col
+from strawboat.exec.pruning import Comparison, read_zones
+from strawboat.exec.scan import DeviceColumn, DeviceTable, scan_chunks
 
 MIX = 0x9E3779B97F4A7C15  # the reporting-key multiplier
 
@@ -126,7 +126,7 @@ def test_pruning_float_literal_against_int_zone(tmp_path):
 
 
 def test_join_key_equal_to_old_sentinel_matches():
-    from strawboat_tpu.exec.join import hash_join
+    from strawboat.exec.join import hash_join
 
     sentinel = -(2**62)
     probe = _table({"k": (np.array([sentinel, 5], dtype=np.int64), None)})
@@ -145,7 +145,7 @@ def test_join_key_equal_to_old_sentinel_matches():
 
 
 def test_join_null_build_key_never_matches_stored_value():
-    from strawboat_tpu.exec.join import hash_join
+    from strawboat.exec.join import hash_join
 
     # null build row whose *stored* key equals a probe key: must not match
     probe = _table({"k": (np.array([42], dtype=np.int64), None)})

@@ -10,8 +10,8 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from strawboat_tpu.exec.aggregate import hash_aggregate
-from strawboat_tpu.exec.scan import DeviceColumn, DeviceTable
+from strawboat.exec.aggregate import hash_aggregate
+from strawboat.exec.scan import DeviceColumn, DeviceTable
 
 
 def _table(cols):
@@ -78,10 +78,10 @@ def test_mixed_codec_column_fast_path(tmp_path):
     match the source exactly."""
     import pyarrow as pa
 
-    from strawboat_tpu import native
-    from strawboat_tpu.api import read_table, write_file
-    from strawboat_tpu.codecs import WriteOptions
-    from strawboat_tpu.constants import Compression
+    from strawboat import native
+    from strawboat.api import read_table, write_file
+    from strawboat.codecs import WriteOptions
+    from strawboat.constants import Compression
 
     if not native.available():
         import pytest
@@ -111,8 +111,8 @@ def test_mixed_codec_column_fast_path(tmp_path):
         ),
     )
     # confirm the file really has heterogeneous page codecs
-    from strawboat_tpu.codecs import read_header
-    from strawboat_tpu.read.reader import read_meta
+    from strawboat.codecs import read_header
+    from strawboat.read.reader import read_meta
 
     with open(p, "rb") as f:
         metas = read_meta(f)
@@ -125,7 +125,7 @@ def test_mixed_codec_column_fast_path(tmp_path):
         pos += pg.length
     assert len(codecs) > 1, f"expected a codec mix, got {codecs}"
     # fast path handles it directly
-    from strawboat_tpu.read.fast import read_column_fast
+    from strawboat.read.fast import read_column_fast
 
     schema = t.schema
     arr = read_column_fast(fb, metas[0], schema.field("m"))
@@ -140,10 +140,10 @@ def test_bp_int32_column_fast_path(tmp_path):
     """Plain BITPACKING (4-byte) pages decode on the fast path."""
     import pyarrow as pa
 
-    from strawboat_tpu import native
-    from strawboat_tpu.api import read_table, write_file
-    from strawboat_tpu.codecs import WriteOptions
-    from strawboat_tpu.constants import Compression
+    from strawboat import native
+    from strawboat.api import read_table, write_file
+    from strawboat.codecs import WriteOptions
+    from strawboat.constants import Compression
 
     if not native.available():
         import pytest
@@ -174,10 +174,10 @@ def test_raw_string_column_fast_path(tmp_path):
     path and match exactly; nullable variant included."""
     import pyarrow as pa
 
-    from strawboat_tpu import native
-    from strawboat_tpu.api import read_table, write_file
-    from strawboat_tpu.codecs import WriteOptions
-    from strawboat_tpu.constants import Compression
+    from strawboat import native
+    from strawboat.api import read_table, write_file
+    from strawboat.codecs import WriteOptions
+    from strawboat.constants import Compression
 
     if not native.available():
         import pytest
@@ -213,9 +213,9 @@ def test_raw_string_column_fast_path(tmp_path):
         ),
     )
     # prove the fast path handles it directly
-    from strawboat_tpu.api import split_metas_by_field
-    from strawboat_tpu.read.fast import read_binary_column_fast
-    from strawboat_tpu.read.reader import infer_schema, read_meta
+    from strawboat.api import split_metas_by_field
+    from strawboat.read.fast import read_binary_column_fast
+    from strawboat.read.reader import infer_schema, read_meta
 
     with open(p, "rb") as f:
         schema = infer_schema(f)
@@ -238,10 +238,10 @@ def test_onevalue_string_pages_fast_path(tmp_path):
     general reader)."""
     import pyarrow as pa
 
-    from strawboat_tpu import native
-    from strawboat_tpu.api import read_table, write_file
-    from strawboat_tpu.codecs import WriteOptions
-    from strawboat_tpu.constants import Compression
+    from strawboat import native
+    from strawboat.api import read_table, write_file
+    from strawboat.codecs import WriteOptions
+    from strawboat.constants import Compression
 
     if not native.available():
         import pytest
@@ -281,9 +281,9 @@ def test_onevalue_string_pages_fast_path(tmp_path):
             max_page_size=page,
         ),
     )
-    from strawboat_tpu.api import split_metas_by_field
-    from strawboat_tpu.read.fast import read_binary_column_fast
-    from strawboat_tpu.read.reader import infer_schema, read_meta
+    from strawboat.api import split_metas_by_field
+    from strawboat.read.fast import read_binary_column_fast
+    from strawboat.read.reader import infer_schema, read_meta
 
     with open(p, "rb") as f:
         schema = infer_schema(f)
@@ -304,10 +304,10 @@ def test_freq_string_pages_fast_path(tmp_path):
     dict-family fast path — the l_linestatus SF10 shape (OV+FREQ+DICT mix)."""
     import pyarrow as pa
 
-    from strawboat_tpu import native
-    from strawboat_tpu.api import read_table, write_file
-    from strawboat_tpu.codecs import WriteOptions
-    from strawboat_tpu.constants import Compression
+    from strawboat import native
+    from strawboat.api import read_table, write_file
+    from strawboat.codecs import WriteOptions
+    from strawboat.constants import Compression
 
     if not native.available():
         import pytest
@@ -340,11 +340,11 @@ def test_freq_string_pages_fast_path(tmp_path):
             max_page_size=page,
         ),
     )
-    from strawboat_tpu.api import split_metas_by_field
-    from strawboat_tpu.read.fast import read_binary_column_fast
-    from strawboat_tpu.read.reader import infer_schema, read_meta
-    from strawboat_tpu.codecs import read_header
-    from strawboat_tpu.constants import Compression as C
+    from strawboat.api import split_metas_by_field
+    from strawboat.read.fast import read_binary_column_fast
+    from strawboat.read.reader import infer_schema, read_meta
+    from strawboat.codecs import read_header
+    from strawboat.constants import Compression as C
 
     with open(p, "rb") as f:
         schema = infer_schema(f)

@@ -5,10 +5,10 @@ import numpy as np
 import pyarrow as pa
 import pytest
 
-from strawboat_tpu.api import read_table, write_file
-from strawboat_tpu.codecs import WriteOptions
-from strawboat_tpu.constants import Compression
-from strawboat_tpu.errors import OutOfSpecError, StrawboatError
+from strawboat.api import read_table, write_file
+from strawboat.codecs import WriteOptions
+from strawboat.constants import Compression
+from strawboat.errors import OutOfSpecError, StrawboatError
 
 
 @pytest.fixture
@@ -61,7 +61,7 @@ def test_corrupt_compressed_body(valid_file, tmp_path):
 def test_writer_state_machine(tmp_path):
     import io
 
-    from strawboat_tpu.write.writer import NativeWriter
+    from strawboat.write.writer import NativeWriter
 
     table = pa.table({"a": pa.array([1], type=pa.int64())})
     w = NativeWriter(io.BytesIO(), table.schema, WriteOptions())
@@ -84,10 +84,10 @@ def test_zone_block_truncated_payload_ignored(tmp_path):
     import numpy as np
     import pyarrow as pa
 
-    from strawboat_tpu.api import write_file
-    from strawboat_tpu.codecs import WriteOptions
-    from strawboat_tpu.constants import Compression
-    from strawboat_tpu.exec.pruning import read_zones
+    from strawboat.api import write_file
+    from strawboat.codecs import WriteOptions
+    from strawboat.constants import Compression
+    from strawboat.exec.pruning import read_zones
 
     table = pa.table({"k": pa.array(np.arange(4096, dtype=np.int64))})
     path = str(tmp_path / "z.str")
@@ -117,10 +117,10 @@ def test_file_without_zone_block_reads_none(tmp_path):
     import numpy as np
     import pyarrow as pa
 
-    from strawboat_tpu.api import write_file
-    from strawboat_tpu.codecs import WriteOptions
-    from strawboat_tpu.constants import Compression
-    from strawboat_tpu.exec.pruning import read_zones
+    from strawboat.api import write_file
+    from strawboat.codecs import WriteOptions
+    from strawboat.constants import Compression
+    from strawboat.exec.pruning import read_zones
 
     table = pa.table({"k": pa.array(np.arange(128, dtype=np.int64))})
     path = str(tmp_path / "nz.str")

@@ -10,16 +10,16 @@ import numpy as np
 import pyarrow as pa
 import pytest
 
-from strawboat_tpu.api import write_file
-from strawboat_tpu.codecs import WriteOptions
-from strawboat_tpu.constants import Compression
-from strawboat_tpu.exec import scan_dataset
-from strawboat_tpu.exec.dataset import (
+from strawboat.api import write_file
+from strawboat.codecs import WriteOptions
+from strawboat.constants import Compression
+from strawboat.exec import scan_dataset
+from strawboat.exec.dataset import (
     file_may_match,
     iter_dataset_chunks,
     resolve_paths,
 )
-from strawboat_tpu.exec.pruning import Comparison
+from strawboat.exec.pruning import Comparison
 
 OPTS = WriteOptions(
     default_compression=Compression.LZ4,
@@ -111,7 +111,7 @@ def test_dataset_nullable_and_dict_merge(tmp_path):
 
 
 def test_dataset_schema_mismatch_raises(tmp_path):
-    from strawboat_tpu.errors import OutOfSpecError
+    from strawboat.errors import OutOfSpecError
 
     t1 = pa.table({"a": pa.array([1, 2], type=pa.int64())})
     t2 = pa.table({"b": pa.array([3, 4], type=pa.int64())})
@@ -135,7 +135,7 @@ def test_iter_dataset_chunks_covers_all_rows(tmp_path):
 
 
 def test_empty_dataset_raises(tmp_path):
-    from strawboat_tpu.errors import OutOfSpecError
+    from strawboat.errors import OutOfSpecError
 
     with pytest.raises(OutOfSpecError):
         scan_dataset(str(tmp_path / "nope-*.str"))
@@ -145,7 +145,7 @@ def test_empty_dataset_raises(tmp_path):
 
 def test_query_over_dataset_glob(tmp_path):
     """Query() accepts a glob / list: full filter+group_by over many files."""
-    from strawboat_tpu.exec import Query, col
+    from strawboat.exec import Query, col
 
     paths, tables = _write_parts(tmp_path, with_strings=True)
     res = (
@@ -180,7 +180,7 @@ def test_query_over_dataset_glob(tmp_path):
 def test_write_dataset_roundtrip(tmp_path):
     """write_dataset -> scan_dataset closes the multi-file loop; each part
     is standalone (own footer + zones) so file-level pruning works."""
-    from strawboat_tpu.exec.dataset import write_dataset
+    from strawboat.exec.dataset import write_dataset
 
     n = 1000
     t = pa.table(
@@ -240,7 +240,7 @@ def test_manifest_prunes_without_file_reads(tmp_path):
     away to prove no file access happens for pruned parts)."""
     import os
 
-    from strawboat_tpu.exec.dataset import (
+    from strawboat.exec.dataset import (
         dataset_manifest,
         load_manifest,
         scan_dataset_with_manifest,
@@ -267,7 +267,7 @@ def test_manifest_prunes_without_file_reads(tmp_path):
 
 
 def test_compact_dataset_roundtrip(tmp_path):
-    from strawboat_tpu.exec.dataset import compact_dataset
+    from strawboat.exec.dataset import compact_dataset
 
     paths, tables = _write_parts(tmp_path, n_files=3, rows=500, with_strings=True)
     out = compact_dataset(
@@ -285,7 +285,7 @@ def test_compact_dataset_roundtrip(tmp_path):
 
 def test_query_join_against_dataset_glob(tmp_path):
     """Query.join accepts a glob build side (dataset scan under the hood)."""
-    from strawboat_tpu.exec import Query, col
+    from strawboat.exec import Query, col
 
     rng = np.random.default_rng(0)
     n = 600

@@ -5,10 +5,10 @@ import numpy as np
 import pyarrow as pa
 import pytest
 
-from strawboat_tpu.api import write_file
-from strawboat_tpu.codecs import WriteOptions
-from strawboat_tpu.constants import Compression
-from strawboat_tpu.exec import scan_file
+from strawboat.api import write_file
+from strawboat.codecs import WriteOptions
+from strawboat.constants import Compression
+from strawboat.exec import scan_file
 
 
 def _write(path, table, **kw):
@@ -43,7 +43,7 @@ def dict_string_file(tmp_path):
 
 def test_dict_string_pages_never_reencode(dict_string_file, monkeypatch):
     """All pages dict-coded → zero dictionary_encode calls during scan."""
-    from strawboat_tpu.exec import scan as scan_mod
+    from strawboat.exec import scan as scan_mod
 
     path, table, vals = dict_string_file
 
@@ -87,7 +87,7 @@ def test_mixed_raw_and_dict_string_pages(tmp_path, monkeypatch):
     table = pa.table({"s": pa.array(vals, pa.string())})
     path = str(tmp_path / "mixed.str")
     _write(path, table, default_compress_ratio=1.0, max_page_size=1024)
-    from strawboat_tpu.exec import scan as scan_mod
+    from strawboat.exec import scan as scan_mod
 
     calls = []
     orig = scan_mod._dictionary_encode

@@ -12,10 +12,10 @@ from conftest import (
     create_random_index,
     create_random_string,
 )
-from strawboat_tpu.api import read_table, write_file
-from strawboat_tpu.codecs import WriteOptions
-from strawboat_tpu.constants import Compression
-from strawboat_tpu.util import env
+from strawboat.api import read_table, write_file
+from strawboat.codecs import WriteOptions
+from strawboat.constants import Compression
+from strawboat.util import env
 
 
 @pytest.fixture(autouse=True)
@@ -57,7 +57,7 @@ def test_forced_roundtrip(tmp_strawboat, var, monkeypatch):
 
 def test_forced_codec_actually_used(tmp_strawboat, monkeypatch):
     monkeypatch.setenv(env.DICT_ENV, "1")
-    from strawboat_tpu.codecs.integer import compress_integer
+    from strawboat.codecs.integer import compress_integer
 
     buf = compress_integer(
         np.arange(100, dtype=np.int64), None, WriteOptions()

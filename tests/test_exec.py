@@ -5,9 +5,9 @@ import pyarrow as pa
 import pyarrow.compute as pc
 import pytest
 
-from strawboat_tpu.api import write_file
-from strawboat_tpu.codecs import WriteOptions
-from strawboat_tpu.constants import Compression
+from strawboat.api import write_file
+from strawboat.codecs import WriteOptions
+from strawboat.constants import Compression
 
 
 def _opts(**kw):
@@ -42,7 +42,7 @@ def scan_table(tmp_strawboat):
 
 
 def test_device_scan_matches_host(scan_table):
-    from strawboat_tpu.exec import scan_file
+    from strawboat.exec import scan_file
 
     path, table = scan_table
     dt = scan_file(path)
@@ -64,8 +64,8 @@ def test_device_scan_matches_host(scan_table):
 def test_filter_aggregate(scan_table):
     import jax.numpy as jnp
 
-    from strawboat_tpu.exec import col, scan_file
-    from strawboat_tpu.exec.aggregate import scalar_aggregate
+    from strawboat.exec import col, scan_file
+    from strawboat.exec.aggregate import scalar_aggregate
 
     path, table = scan_table
     dt = scan_file(path)
@@ -82,7 +82,7 @@ def test_filter_aggregate(scan_table):
 
 
 def test_grouped_aggregate(scan_table):
-    from strawboat_tpu.exec import hash_aggregate, scan_file
+    from strawboat.exec import hash_aggregate, scan_file
 
     path, table = scan_table
     dt = scan_file(path)
@@ -128,8 +128,8 @@ def test_hash_join(tmp_strawboat, tmp_path):
     write_file(fpath, fact, options=_opts())
     write_file(dpath, dim, options=_opts())
 
-    from strawboat_tpu.exec import hash_join, scan_file
-    from strawboat_tpu.exec.aggregate import scalar_aggregate
+    from strawboat.exec import hash_join, scan_file
+    from strawboat.exec.aggregate import scalar_aggregate
 
     ft = scan_file(fpath)
     dtab = scan_file(dpath)
@@ -149,8 +149,8 @@ def test_string_column_device_scan(tmp_path):
     import numpy as np
     import pyarrow as pa
 
-    from strawboat_tpu.exec import col, scan_file
-    from strawboat_tpu.exec.aggregate import scalar_aggregate
+    from strawboat.exec import col, scan_file
+    from strawboat.exec.aggregate import scalar_aggregate
 
     rng = np.random.default_rng(11)
     n = 5000
@@ -179,8 +179,8 @@ def test_nested_column_device_scan(tmp_path):
     import numpy as np
     import pyarrow as pa
 
-    from strawboat_tpu.exec import scan_file
-    from strawboat_tpu.exec.scan import DeviceListColumn
+    from strawboat.exec import scan_file
+    from strawboat.exec.scan import DeviceListColumn
 
     n = 2000
     table = pa.table(
@@ -214,8 +214,8 @@ def test_query_api(tmp_path):
     import numpy as np
     import pyarrow as pa
 
-    from strawboat_tpu.exec import col
-    from strawboat_tpu.exec.query import Query
+    from strawboat.exec import col
+    from strawboat.exec.query import Query
 
     rng = np.random.default_rng(21)
     n = 8192
@@ -261,7 +261,7 @@ def test_device_table_to_arrow(tmp_path):
     import numpy as np
     import pyarrow as pa
 
-    from strawboat_tpu.exec import col, scan_file
+    from strawboat.exec import col, scan_file
 
     rng = np.random.default_rng(31)
     n = 3000
@@ -286,12 +286,32 @@ def test_device_table_to_arrow(tmp_path):
     np.testing.assert_array_equal(got.column("b").to_numpy(zero_copy_only=False), exp_b)
 
 
+@pytest.mark.parametrize("dtype", [np.int64, np.int32, np.float64])
+def test_join_indices_null_build_rows_never_count(dtype):
+    """Null build rows sharing a key (an exchange's padding) neither match
+    nor widen the fan-out: max_run counts valid rows only."""
+    import jax.numpy as jnp
+
+    from strawboat.exec.join import _join_indices
+
+    bk = np.array([5, 0, 0, 0, 0, 0, 3], dtype)
+    bv = np.array([1, 0, 0, 0, 0, 1, 1], bool)
+    pk = np.array([0, 3, 5, 7, 0], dtype)
+    pi, bi, ok, max_run = _join_indices(
+        jnp.asarray(bk), jnp.asarray(pk), 1, jnp.asarray(bv)
+    )
+    assert int(max_run) == 1
+    got = sorted(zip(np.asarray(pi)[np.asarray(ok)].tolist(),
+                     np.asarray(bi)[np.asarray(ok)].tolist()))
+    assert got == [(0, 5), (1, 6), (2, 0), (4, 5)]
+
+
 def test_hash_join_duplicate_build_keys(tmp_path):
     import numpy as np
     import pyarrow as pa
 
-    from strawboat_tpu.exec import hash_join, scan_file
-    from strawboat_tpu.exec.aggregate import scalar_aggregate
+    from strawboat.exec import hash_join, scan_file
+    from strawboat.exec.aggregate import scalar_aggregate
 
     rng = np.random.default_rng(13)
     n, m = 2000, 300
@@ -315,7 +335,7 @@ def test_hash_join_duplicate_build_keys(tmp_path):
 
 
 def test_hash_aggregate_key_columns(scan_table):
-    from strawboat_tpu.exec import hash_aggregate, scan_file
+    from strawboat.exec import hash_aggregate, scan_file
 
     path, table = scan_table
     dt = scan_file(path)
@@ -331,8 +351,8 @@ def test_hash_aggregate_key_columns(scan_table):
 def test_list_segment_sum(tmp_path):
     import pyarrow as pa
 
-    from strawboat_tpu.exec import scan_file
-    from strawboat_tpu.exec.aggregate import list_segment_sum
+    from strawboat.exec import scan_file
+    from strawboat.exec.aggregate import list_segment_sum
 
     n = 500
     data = [[i, i + 1, i + 2] if i % 4 else ([] if i % 2 else None) for i in range(n)]
@@ -350,7 +370,7 @@ def test_scan_chunks_streaming(tmp_path):
     import numpy as np
     import pyarrow as pa
 
-    from strawboat_tpu.exec.scan import scan_chunks
+    from strawboat.exec.scan import scan_chunks
 
     rng = np.random.default_rng(41)
     n = 10000
@@ -379,10 +399,10 @@ def test_decimal_device_scan_and_filter(tmp_path):
 
     import numpy as np
 
-    from strawboat_tpu.api import write_file
-    from strawboat_tpu.codecs import WriteOptions
-    from strawboat_tpu.constants import Compression
-    from strawboat_tpu.exec import col, scan_file
+    from strawboat.api import write_file
+    from strawboat.codecs import WriteOptions
+    from strawboat.constants import Compression
+    from strawboat.exec import col, scan_file
 
     vals = [Decimal("1.00"), Decimal("2.50"), None, Decimal("-3.75")] * 200
     table = pa.table({"d": pa.array(vals, pa.decimal128(10, 2))})
@@ -406,11 +426,11 @@ def test_query_join_group_by(tmp_path):
     date filter, revenue grouped by order priority — vs numpy."""
     import numpy as np
 
-    from strawboat_tpu.api import write_file
-    from strawboat_tpu.benchsuite.tpch import generate_lineitem, generate_orders
-    from strawboat_tpu.codecs import WriteOptions
-    from strawboat_tpu.constants import Compression
-    from strawboat_tpu.exec import Query, col
+    from strawboat.api import write_file
+    from strawboat.benchsuite.tpch import generate_lineitem, generate_orders
+    from strawboat.codecs import WriteOptions
+    from strawboat.constants import Compression
+    from strawboat.exec import Query, col
 
     li = generate_lineitem(0.001)
     orders = generate_orders(0.001)
@@ -458,11 +478,11 @@ def test_query_join_group_by(tmp_path):
 def test_query_join_name_conflict_raises(tmp_path):
     import pyarrow as pa
 
-    from strawboat_tpu.api import write_file
-    from strawboat_tpu.codecs import WriteOptions
-    from strawboat_tpu.constants import Compression
-    from strawboat_tpu.errors import OutOfSpecError
-    from strawboat_tpu.exec import Query
+    from strawboat.api import write_file
+    from strawboat.codecs import WriteOptions
+    from strawboat.constants import Compression
+    from strawboat.errors import OutOfSpecError
+    from strawboat.exec import Query
 
     t = pa.table({"k": pa.array([1, 2, 3], pa.int64())})
     p1, p2 = str(tmp_path / "a.str"), str(tmp_path / "b.str")
@@ -481,10 +501,10 @@ def test_string_range_comparisons(tmp_path):
 
     import numpy as np
 
-    from strawboat_tpu.api import write_file
-    from strawboat_tpu.codecs import WriteOptions
-    from strawboat_tpu.constants import Compression
-    from strawboat_tpu.exec import col, scan_file
+    from strawboat.api import write_file
+    from strawboat.codecs import WriteOptions
+    from strawboat.constants import Compression
+    from strawboat.exec import col, scan_file
 
     rng = np.random.default_rng(0)
     words = ["apple", "banana", "cherry", "date", "elderberry"]

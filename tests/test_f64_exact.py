@@ -1,16 +1,17 @@
-"""f64 bit-exactness through the scan (TPU stores f64 as a float32 pair, so
-device round-trips lose low mantissa bits — the exact decoded bytes must
-stay host-side and drive materialization/re-encode)."""
+"""f64 bit-exactness through the scan: the exact decoded bytes stay
+host-side (``host_exact``) and drive materialization/re-encode, so a device
+f64 copy that lost low mantissa bits (as on an accelerator that stores f64
+as a float32 pair) never reaches the output."""
 
 import os
 
 import numpy as np
 import pyarrow as pa
 
-from strawboat_tpu.api import read_table, write_file
-from strawboat_tpu.codecs import WriteOptions
-from strawboat_tpu.constants import Compression
-from strawboat_tpu.exec import scan_file
+from strawboat.api import read_table, write_file
+from strawboat.codecs import WriteOptions
+from strawboat.constants import Compression
+from strawboat.exec import scan_file
 
 
 def _write(path, table, **kw):
@@ -52,7 +53,7 @@ def test_f64_patas_path_keeps_exact_bytes(tmp_path):
 
 
 def test_f64_exact_survives_lossy_device_values(tmp_path):
-    """Even if the device copy degrades (as on TPU), to_arrow stays exact."""
+    """Even if the device copy degrades, to_arrow stays exact."""
     import jax.numpy as jnp
 
     rng = np.random.default_rng(2)
@@ -61,11 +62,11 @@ def test_f64_exact_survives_lossy_device_values(tmp_path):
     _write(path, pa.table({"a": pa.array(src)}))
     dt = scan_file(path)
     c = dt["a"]
-    # simulate the TPU f32-pair degradation on the device copy
+    # simulate a float32-pair degradation of the device copy
     degraded = jnp.asarray(
         (np.asarray(c.values).view(np.uint64) | 3).view(np.float64)
     )
-    from strawboat_tpu.exec.scan import DeviceColumn, DeviceTable
+    from strawboat.exec.scan import DeviceColumn, DeviceTable
 
     dt2 = DeviceTable(
         {"a": DeviceColumn("a", c.dtype, degraded, None, host_exact=c.host_exact)},
@@ -89,7 +90,7 @@ def test_list_f64_leaf_keeps_exact_bytes(tmp_path):
 
 def test_f64_device_reencode_exact(tmp_path):
     """scan → write_device_table → read_table is bit-exact for f64."""
-    from strawboat_tpu.write.device import write_device_table
+    from strawboat.write.device import write_device_table
 
     rng = np.random.default_rng(4)
     src = np.cumsum(rng.random(3000)) * 0.001

@@ -10,9 +10,9 @@ import numpy as np
 import pyarrow as pa
 import pytest
 
-from strawboat_tpu.api import iter_batches, read_table, write_file
-from strawboat_tpu.codecs import WriteOptions
-from strawboat_tpu.constants import Compression
+from strawboat.api import iter_batches, read_table, write_file
+from strawboat.codecs import WriteOptions
+from strawboat.constants import Compression
 
 PRIMS = [
     pa.int8(),

@@ -15,10 +15,10 @@ import numpy as np
 import pyarrow as pa
 import pytest
 
-from strawboat_tpu.api import read_table, write_file
-from strawboat_tpu.codecs import WriteOptions
+from strawboat.api import read_table, write_file
+from strawboat.codecs import WriteOptions
 
-from test_resident import _float_bits_equal, interp_pallas  # noqa: F401
+from test_resident import _float_bits_equal
 
 
 def _rand_col(rng, depth=0):
@@ -138,8 +138,8 @@ def _cols_equal(e, gt):
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3, 4, 5])
-def test_nested_fuzz_roundtrip(tmp_path, interp_pallas, seed):  # noqa: F811
-    from strawboat_tpu.exec.resident import load_resident
+def test_nested_fuzz_roundtrip(tmp_path, seed):
+    from strawboat.exec.resident import load_resident
 
     rng = np.random.default_rng(9000 + seed)
     n = int(rng.integers(200, 3000))

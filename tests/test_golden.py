@@ -8,16 +8,16 @@ footer structure invariants.  If one of these changes, the format broke.
 import numpy as np
 import pytest
 
-from strawboat_tpu.codecs import WriteOptions
-from strawboat_tpu.codecs.boolean import compress_boolean
-from strawboat_tpu.codecs.integer import (
+from strawboat.codecs import WriteOptions
+from strawboat.codecs.boolean import compress_boolean
+from strawboat.codecs.integer import (
     bitpack_encode,
     compress_integer,
     delta_bitpack_encode,
 )
-from strawboat_tpu.constants import Compression
-from strawboat_tpu.util import roaring
-from strawboat_tpu.util.bits import pack_block128
+from strawboat.constants import Compression
+from strawboat.util import roaring
+from strawboat.util.bits import pack_block128
 
 
 def test_compress_header_layout():
@@ -110,7 +110,7 @@ def test_roaring_layout():
 def test_file_skeleton(tmp_path):
     import pyarrow as pa
 
-    from strawboat_tpu.api import write_file
+    from strawboat.api import write_file
 
     path = str(tmp_path / "g.str")
     write_file(
@@ -154,7 +154,7 @@ def _env(name):
 def test_integer_dict_layout():
     """Dict body = [recursive indices page][u32 unique][plain values]
     (reference src/compression/integer/dict.rs:34-72)."""
-    from strawboat_tpu.codecs.integer import compress_integer, decompress_integer
+    from strawboat.codecs.integer import compress_integer, decompress_integer
 
     vals = np.array([7, 7, 9, 7], dtype=np.int64)
     with _env("STRAWBOAT_DICT_COMPRESSION"):
@@ -179,7 +179,7 @@ def test_integer_dict_layout():
 def test_integer_dict_null_handling_layout():
     """Nulls reuse the last index; a leading null pushes slot 0
     (reference integer/dict.rs:44-55)."""
-    from strawboat_tpu.codecs.integer import compress_integer
+    from strawboat.codecs.integer import compress_integer
 
     vals = np.array([7, 0, 9, 0], dtype=np.int64)
     validity = np.array([True, False, True, False])
@@ -193,7 +193,7 @@ def test_integer_dict_null_handling_layout():
 def test_integer_freq_layout():
     """Freq body = [top T][u32 bitmap_size][roaring exceptions bitmap]
     [recursive exceptions page] (reference integer/freq.rs:34-86)."""
-    from strawboat_tpu.codecs.integer import compress_integer, decompress_integer
+    from strawboat.codecs.integer import compress_integer, decompress_integer
 
     vals = np.array([5] * 10 + [9], dtype=np.int64)
     with _env("STRAWBOAT_FREQ_COMPRESSION"):
@@ -226,7 +226,7 @@ def test_patas_f64_layout():
     """Patas: first value raw LE, then per value [u16 pack(ref_diff,
     sig_bytes, trailing)] [sig_bytes of xor>>trailing] (reference
     double/patas.rs:36-105, pack at 144-150)."""
-    from strawboat_tpu.codecs.double import patas_encode
+    from strawboat.codecs.double import patas_encode
 
     vals = np.array([1.0, 1.5, 1.0], dtype=np.float64)
     body = patas_encode(vals)
@@ -240,7 +240,7 @@ def test_patas_f64_layout():
     )
     assert body == expect
     # framing under env forcing: codec 16 header
-    from strawboat_tpu.codecs.double import compress_double, decompress_double
+    from strawboat.codecs.double import compress_double, decompress_double
 
     with _env("STRAWBOAT_PATAS_COMPRESSION"):
         buf = compress_double(vals, None, WriteOptions())
@@ -254,7 +254,7 @@ def test_patas_f64_layout():
 def test_binary_raw_two_block_layout():
     """Binary raw page = TWO 9-byte-headed blocks: re-zeroed offsets then
     sliced values (reference binary/mod.rs:44-80)."""
-    from strawboat_tpu.codecs.binary import compress_binary, decompress_binary
+    from strawboat.codecs.binary import compress_binary, decompress_binary
 
     offsets = np.array([0, 2, 3], dtype=np.int64)
     values = np.frombuffer(b"abc", np.uint8)
@@ -276,7 +276,7 @@ def test_binary_raw_two_block_layout():
 def test_binary_dict_layout():
     """Binary dict = [indices page][u32 count][[u64 len][bytes] sets]
     (reference binary/dict.rs:55-100)."""
-    from strawboat_tpu.codecs.binary import compress_binary, decompress_binary
+    from strawboat.codecs.binary import compress_binary, decompress_binary
 
     offsets = np.array([0, 1, 2, 3, 4], dtype=np.int64)
     values = np.frombuffer(b"xyxx", np.uint8)
@@ -304,7 +304,7 @@ def test_binary_dict_layout():
 def test_binary_freq_layout():
     """Binary freq = [u64 top_len][top][u32 bitmap_size][bitmap]
     [[u64 len][bytes] exceptions] (reference binary/freq.rs:44-101)."""
-    from strawboat_tpu.codecs.binary import compress_binary, decompress_binary
+    from strawboat.codecs.binary import compress_binary, decompress_binary
 
     slices = [b"aa"] * 10 + [b"zz"]
     offsets = np.concatenate([[0], np.cumsum([len(s) for s in slices])]).astype(
@@ -336,7 +336,7 @@ def test_binary_freq_layout():
 
 def test_binary_one_value_layout():
     """Binary OneValue body = [u32 len][bytes] (binary/one_value.rs:50-64)."""
-    from strawboat_tpu.codecs.binary import compress_binary
+    from strawboat.codecs.binary import compress_binary
 
     offsets = np.array([0, 1, 2, 3], dtype=np.int64)
     values = np.frombuffer(b"qqq", np.uint8)
@@ -383,8 +383,8 @@ def test_nullable_page_prelude_layout(tmp_path):
     V2 hybrid-RLE, bit-packed run required by read_basic.rs:52-60)."""
     import pyarrow as pa
 
-    from strawboat_tpu.api import write_file
-    from strawboat_tpu.read.reader import read_meta
+    from strawboat.api import write_file
+    from strawboat.read.reader import read_meta
 
     path = str(tmp_path / "n.str")
     write_file(
@@ -413,8 +413,8 @@ def test_nested_page_prelude_layout(tmp_path):
     optional list of optional items: def 3 = present, 1 = empty list."""
     import pyarrow as pa
 
-    from strawboat_tpu.api import write_file
-    from strawboat_tpu.read.reader import read_meta
+    from strawboat.api import write_file
+    from strawboat.read.reader import read_meta
 
     path = str(tmp_path / "l.str")
     write_file(
@@ -453,8 +453,8 @@ def test_decimal128_none_layout(tmp_path):
 
     import pyarrow as pa
 
-    from strawboat_tpu.api import write_file
-    from strawboat_tpu.read.reader import read_meta
+    from strawboat.api import write_file
+    from strawboat.read.reader import read_meta
 
     path = str(tmp_path / "d.str")
     write_file(
@@ -492,7 +492,7 @@ def test_patas_f32_layout_fixture_locked():
     (== 63 for f64, where we are bit-identical, test_patas_f64_layout).
     (tz=31, sig=0) is unambiguous: a genuine xor with tz=31 has sig_bits=1.
     """
-    from strawboat_tpu.codecs.double import patas_encode, patas_decode
+    from strawboat.codecs.double import patas_encode, patas_decode
 
     vals = np.array([1.0, 1.5, 1.0], dtype=np.float32)
     body = patas_encode(vals)
@@ -513,7 +513,7 @@ def test_patas_f32_reads_reference_layout_stream():
     """Read-side compatibility: a hand-built f32 stream in the REFERENCE's
     byte layout with no equal markers (where the two layouts agree exactly)
     decodes to the right values."""
-    from strawboat_tpu.codecs.double import patas_decode
+    from strawboat.codecs.double import patas_decode
 
     # values: 1.0, then 2.0 (xor=0x40000000^0x3f800000=0x7f800000, tz=23,
     # lz=1, sig_bits=8, sig_bytes=1, payload=0xff), then 8.0
@@ -528,7 +528,7 @@ def test_patas_f32_reads_reference_layout_stream():
 
 
 def test_patas_f32_roundtrip_random():
-    from strawboat_tpu.codecs.double import patas_encode, patas_decode
+    from strawboat.codecs.double import patas_encode, patas_decode
 
     rng = np.random.default_rng(9)
     # repeats + smooth values: exercises ring references AND equal markers,

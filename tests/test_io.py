@@ -20,9 +20,9 @@ from conftest import (
     create_random_string,
     rng,
 )
-from strawboat_tpu.api import iter_batches, read_table, write_file
-from strawboat_tpu.codecs import WriteOptions
-from strawboat_tpu.constants import Compression
+from strawboat.api import iter_batches, read_table, write_file
+from strawboat.codecs import WriteOptions
+from strawboat.constants import Compression
 
 COMMONS = [
     Compression.LZ4,
@@ -262,7 +262,7 @@ def test_read_arena_recycles_buffers(tmp_strawboat):
     Reference parity: PageIterator::swap_buffer buffer recycling
     (/root/reference/src/read/mod.rs:26-57) lifted to the batch read.
     """
-    from strawboat_tpu.read.fast import ReadArena
+    from strawboat.read.fast import ReadArena
 
     table = pa.table(
         {

@@ -6,22 +6,21 @@ import pytest
 
 import jax.numpy as jnp
 
-from strawboat_tpu.codecs._family import gen_stats
-from strawboat_tpu.kernels.decode import (
+from strawboat.codecs._family import gen_stats
+from strawboat.kernels.decode import (
     bitunpack_device,
-    bitunpack_flat_device,
     dict_gather_device,
     freq_scatter_device,
     one_value_device,
     rle_expand_device,
     unpack_validity_device,
 )
-from strawboat_tpu.kernels.encode import (
+from strawboat.kernels.encode import (
     bitpacked_size_bytes,
     block_bit_widths,
     stats_device,
 )
-from strawboat_tpu.util.bits import pack_bitmap, pack_block128
+from strawboat.util.bits import pack_bitmap, pack_block128
 
 
 def test_bitunpack_matches_host():
@@ -32,20 +31,6 @@ def test_bitunpack_matches_host():
         packed = b"".join(pack_block128(v, b) for v in vals)
         words = np.frombuffer(packed, np.uint32).reshape(n_blocks, b * 4)
         got = np.asarray(bitunpack_device(jnp.asarray(words), b))
-        np.testing.assert_array_equal(got, vals)
-
-
-def test_bitunpack_flat_matches_host():
-    import math
-
-    rng = np.random.default_rng(1)
-    for b in (3, 11, 16, 20):
-        bpr = math.lcm(4 * b, 128) // (4 * b)
-        n_blocks = bpr * 4
-        vals = rng.integers(0, 1 << b, (n_blocks, 128), dtype=np.uint64).astype(np.uint32)
-        packed = b"".join(pack_block128(v, b) for v in vals)
-        words = np.frombuffer(packed, np.uint32)
-        got = np.asarray(bitunpack_flat_device(jnp.asarray(words), b)).reshape(n_blocks, 128)
         np.testing.assert_array_equal(got, vals)
 
 
@@ -90,7 +75,7 @@ def test_stats_device_matches_host():
 
 
 def test_bitpacked_size_matches_encoder():
-    from strawboat_tpu.codecs.integer import bitpack_encode
+    from strawboat.codecs.integer import bitpack_encode
 
     rng = np.random.default_rng(3)
     vals = rng.integers(0, 1 << 15, 128 * 16, dtype=np.uint64).astype(np.uint32)
@@ -101,134 +86,75 @@ def test_bitpacked_size_matches_encoder():
     assert widths.shape == (16,)
 
 
-def test_bitunpack_pallas_interpret():
-    """Pallas kernel logic via the interpreter (real-TPU compile covered by bench)."""
-    from unittest import mock
-
-    from jax.experimental import pallas as pl
-
-    orig = pl.pallas_call
-
-    def patched(*a, **k):
-        k.setdefault("interpret", True)
-        return orig(*a, **k)
-
-    with mock.patch.object(pl, "pallas_call", patched):
-        import importlib
-
-        from strawboat_tpu.kernels import bitunpack_pallas as m
-
-        importlib.reload(m)
-        rng = np.random.default_rng(0)
-        for b in (1, 13, 16, 32):
-            n_blocks = 256
-            vals = rng.integers(
-                0, 1 << b if b < 32 else 1 << 32, (n_blocks, 128), dtype=np.uint64
-            ).astype(np.uint32)
-            packed = b"".join(pack_block128(v, b) for v in vals)
-            wt = m.transpose_words_host(np.frombuffer(packed, np.uint32), b)
-            got = np.asarray(m.bitunpack_pallas(jnp.asarray(wt), b))[
-                : n_blocks * 128
-            ].reshape(n_blocks, 128)
-            np.testing.assert_array_equal(got, vals, err_msg=str(b))
-    importlib.reload(m)
+# ---------------------------------------------------------------------------
+# Resident plane unpack (exec/resident._unpack_plane_tiled): plain jnp, the
+# exact inverse of the plane packers.
 
 
-def test_bitunpack_pallas_tiled_interpret():
-    """Tiled (3D) plane/rowloop kernels + flat-order restore, interpreted."""
-    from unittest import mock
+@pytest.mark.parametrize("b", range(33))
+def test_plane_unpack_matches_host_blocks(b):
+    """BitPacker4x blocks (util/bits) relaid as plane words unpack to the
+    block values, slot s holding block value ``_slot_source_index[s]``."""
+    from strawboat.exec.resident import (
+        _slot_source_index,
+        _unpack_plane_tiled,
+        transpose_words_host_tiled,
+    )
 
-    from jax.experimental import pallas as pl
-
-    orig = pl.pallas_call
-
-    def patched(*a, **k):
-        k.setdefault("interpret", True)
-        return orig(*a, **k)
-
-    with mock.patch.object(pl, "pallas_call", patched):
-        import importlib
-
-        from strawboat_tpu.kernels import bitunpack_pallas as m
-
-        importlib.reload(m)
-        rng = np.random.default_rng(1)
-        for b in (1, 2, 4, 8, 16, 32, 5, 13, 27):
-            n_blocks = 64
-            vals = rng.integers(
-                0, 1 << b if b < 32 else 1 << 32, (n_blocks, 128), dtype=np.uint64
-            ).astype(np.uint32)
-            packed = b"".join(pack_block128(v, b) for v in vals)
-            wt3 = m.transpose_words_host_tiled(
-                np.frombuffer(packed, np.uint32), b, tile=512
-            )
-            out3 = m.bitunpack_pallas_tiled(jnp.asarray(wt3), b)
-            flat = np.asarray(m.bitunpack_tiled_to_flat(out3, b))
-            got = flat[: n_blocks * 128].reshape(n_blocks, 128)
-            np.testing.assert_array_equal(got, vals, err_msg=str(b))
-
-            # seeded variant: unpack(wt ^ seed) without the xored copy
-            seeded = m.bitunpack_pallas_tiled_seeded(
-                jnp.asarray(wt3), jnp.uint32(0), b
-            )
-            np.testing.assert_array_equal(
-                np.asarray(seeded), np.asarray(out3), err_msg=f"seed0 b={b}"
-            )
-            s = np.uint32(0xA5A5_00FF)
-            seeded = m.bitunpack_pallas_tiled_seeded(jnp.asarray(wt3), jnp.uint32(s), b)
-            ref = m.bitunpack_pallas_tiled(jnp.asarray(wt3 ^ s), b)
-            np.testing.assert_array_equal(
-                np.asarray(seeded), np.asarray(ref), err_msg=f"seeded b={b}"
-            )
-    importlib.reload(m)
+    tile = 512
+    n_blocks = 3 * tile // 4 - 5  # 3 tiles, the last one padded
+    rng = np.random.default_rng(100 + b)
+    hi = 1 << b
+    vals = rng.integers(0, hi, (n_blocks, 128), dtype=np.uint64).astype(np.uint32)
+    if b == 0:
+        wt3 = np.zeros((3, 0, tile), np.uint32)
+    else:
+        packed = b"".join(pack_block128(v, b) for v in vals)
+        wt3 = transpose_words_host_tiled(np.frombuffer(packed, np.uint32), b, tile)
+    assert wt3.shape == (3, b, tile)
+    got = np.asarray(_unpack_plane_tiled(jnp.asarray(wt3), b))
+    src = _slot_source_index(3, tile)
+    real = src < vals.size
+    np.testing.assert_array_equal(got[real], vals.reshape(-1)[src[real]])
+    assert not got[~real].any()  # zero-padded lanes decode to zero
 
 
-def test_bitunpack_natural_kernel_interpret():
-    """In-VMEM natural-order kernel: reshape(-1) IS flat natural order."""
-    from unittest import mock
+@pytest.mark.parametrize("b", [1, 2, 3, 5, 7, 8, 11, 16, 17, 24, 31, 32])
+@pytest.mark.parametrize("n", [1, 777, 70_000])
+def test_plane_pack_unpack_roundtrip(b, n):
+    """Both packers (host below 2^16 values, device above) round-trip
+    through the unpack in natural row order; the padding tail is zero."""
+    from strawboat.exec.resident import (
+        _pack_plane,
+        _pack_plane_device,
+        _slots_for,
+        _unpack_plane_tiled,
+    )
 
-    from jax.experimental import pallas as pl
+    tile = 512
+    rng = np.random.default_rng(b * 7 + n)
+    vals = rng.integers(0, 1 << b, n, dtype=np.uint64).astype(np.uint32)
+    slots = _slots_for(n, tile)
+    want = np.zeros(slots, np.uint32)
+    want[:n] = vals
+    for wt3 in (
+        _pack_plane(vals, b, tile),
+        _pack_plane_device(jnp.asarray(vals), b, tile),
+    ):
+        assert wt3.shape == (slots // (32 * tile), b, tile)
+        np.testing.assert_array_equal(
+            np.asarray(_unpack_plane_tiled(wt3, b)), want
+        )
 
-    orig = pl.pallas_call
 
-    def patched(*a, **k):
-        k.setdefault("interpret", True)
-        return orig(*a, **k)
+def test_pack_plane_device_keys_on_tile():
+    """The device packer's compiled function depends on the tile width, so
+    two widths in one process must each get their own layout."""
+    from strawboat.exec.resident import _pack_plane_device, _unpack_plane_tiled
 
-    with mock.patch.object(pl, "pallas_call", patched):
-        import importlib
-
-        from strawboat_tpu.kernels import bitunpack_pallas as m
-
-        importlib.reload(m)
-        rng = np.random.default_rng(3)
-        for b in (1, 2, 4, 8, 16, 32):
-            n_blocks = 256
-            vals = rng.integers(
-                0, 1 << b if b < 32 else 1 << 32, (n_blocks, 128), dtype=np.uint64
-            ).astype(np.uint32)
-            packed = b"".join(pack_block128(v, b) for v in vals)
-            wt3 = m.transpose_words_host_tiled(
-                np.frombuffer(packed, np.uint32), b, tile=512
-            )
-            out = m.bitunpack_pallas_tiled_natural(
-                jnp.asarray(wt3), jnp.uint32(0), b
-            )
-            flat = np.asarray(out).reshape(-1)[: n_blocks * 128]
-            np.testing.assert_array_equal(
-                flat.reshape(n_blocks, 128), vals, err_msg=str(b)
-            )
-            # seed parity with the two-step path
-            s = np.uint32(0x5A5A1234)
-            out_s = m.bitunpack_pallas_tiled_natural(
-                jnp.asarray(wt3), jnp.uint32(s), b
-            )
-            ref = m.bitunpack_tiled_to_flat(
-                m.bitunpack_pallas_tiled(jnp.asarray(wt3 ^ s), b), b
-            )
-            np.testing.assert_array_equal(
-                np.asarray(out_s).reshape(-1),
-                np.asarray(ref),
-                err_msg=f"seeded b={b}",
-            )
-    importlib.reload(m)
+    vals = np.arange(70_000, dtype=np.uint32) % 1000
+    for tile in (512, 1024, 512):
+        wt3 = _pack_plane_device(jnp.asarray(vals), 10, tile)
+        assert wt3.shape[1:] == (10, tile)
+        got = np.asarray(_unpack_plane_tiled(wt3, 10))[: vals.size]
+        np.testing.assert_array_equal(got, vals)

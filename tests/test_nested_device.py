@@ -7,11 +7,11 @@ import numpy as np
 import pyarrow as pa
 import pytest
 
-from strawboat_tpu.api import write_file
-from strawboat_tpu.codecs import WriteOptions
-from strawboat_tpu.constants import Compression
-from strawboat_tpu.exec import scan_file
-from strawboat_tpu.exec.aggregate import list_segment_sum
+from strawboat.api import write_file
+from strawboat.codecs import WriteOptions
+from strawboat.constants import Compression
+from strawboat.exec import scan_file
+from strawboat.exec.aggregate import list_segment_sum
 
 
 def _write(path, table, page=256):

@@ -13,11 +13,11 @@ import jax
 import jax.numpy as jnp
 import pyarrow as pa
 
-from strawboat_tpu.errors import CapacityError
-from strawboat_tpu.exec.aggregate import hash_aggregate
-from strawboat_tpu.exec.join import hash_join
-from strawboat_tpu.exec.scan import DeviceColumn, DeviceTable
-from strawboat_tpu.parallel import distributed_aggregate, make_mesh, shuffle_by_key
+from strawboat.errors import CapacityError
+from strawboat.exec.aggregate import hash_aggregate
+from strawboat.exec.join import hash_join
+from strawboat.exec.scan import DeviceColumn, DeviceTable
+from strawboat.parallel import distributed_aggregate, make_mesh, shuffle_by_key
 
 
 @pytest.fixture(scope="module")
@@ -153,7 +153,7 @@ def test_distributed_aggregate_overflow_grows(mesh):
 
 
 def test_distributed_join_fanout_grows(mesh):
-    from strawboat_tpu.parallel.dist_join import distributed_join
+    from strawboat.parallel.dist_join import distributed_join
 
     rng = np.random.default_rng(29)
     n, m = 8 * 128, 8 * 32
@@ -184,7 +184,7 @@ def test_distributed_join_fanout_grows(mesh):
 
 
 def test_pipelined_aggregate_overflow_raises(mesh):
-    from strawboat_tpu.parallel.pipeline import pipelined_distributed_aggregate
+    from strawboat.parallel.pipeline import pipelined_distributed_aggregate
 
     rng = np.random.default_rng(31)
     per_chunk = 8 * 256

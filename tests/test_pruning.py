@@ -5,11 +5,11 @@ driven by stats instead of an external catalog)."""
 import numpy as np
 import pyarrow as pa
 
-from strawboat_tpu.api import write_file
-from strawboat_tpu.codecs import WriteOptions
-from strawboat_tpu.constants import Compression
-from strawboat_tpu.exec import scan_file
-from strawboat_tpu.exec.pruning import Comparison, read_zones
+from strawboat.api import write_file
+from strawboat.codecs import WriteOptions
+from strawboat.constants import Compression
+from strawboat.exec import scan_file
+from strawboat.exec.pruning import Comparison, read_zones
 
 
 def _write_sorted(tmp_path):
@@ -78,9 +78,9 @@ def test_zones_are_in_band(tmp_path):
     import numpy as np
     import pyarrow as pa
 
-    from strawboat_tpu.api import read_table, write_file
-    from strawboat_tpu.codecs import WriteOptions
-    from strawboat_tpu.constants import Compression
+    from strawboat.api import read_table, write_file
+    from strawboat.codecs import WriteOptions
+    from strawboat.constants import Compression
 
     table = pa.table({"k": pa.array(np.arange(4096, dtype=np.int64))})
     path = str(tmp_path / "inband.str")
@@ -102,7 +102,7 @@ def test_zones_are_in_band(tmp_path):
 def test_zone_serializer_preserves_width():
     """i64 beyond 2^53, u64 beyond i64, floats and all-null pages all
     roundtrip exactly (no lossy f64-of-int)."""
-    from strawboat_tpu.exec.pruning import (
+    from strawboat.exec.pruning import (
         ColumnZones,
         PageZone,
         deserialize_zones,
@@ -132,10 +132,10 @@ def test_string_columns_emit_no_byte_zones(tmp_path):
     """
     import pyarrow as pa
 
-    from strawboat_tpu.api import write_file
-    from strawboat_tpu.codecs import WriteOptions
-    from strawboat_tpu.constants import Compression
-    from strawboat_tpu.exec.pruning import read_zones
+    from strawboat.api import write_file
+    from strawboat.codecs import WriteOptions
+    from strawboat.constants import Compression
+    from strawboat.exec.pruning import read_zones
 
     t = pa.table(
         {

@@ -7,10 +7,10 @@ import pyarrow as pa
 import pytest
 
 from conftest import create_random_i64
-from strawboat_tpu.api import write_file
-from strawboat_tpu.codecs import WriteOptions
-from strawboat_tpu.constants import Compression
-from strawboat_tpu.read.reader import (
+from strawboat.api import write_file
+from strawboat.codecs import WriteOptions
+from strawboat.constants import Compression
+from strawboat.read.reader import (
     infer_schema,
     infer_schema_async,
     read_meta,
@@ -87,8 +87,8 @@ def test_page_iterator_nth_and_skip(tmp_strawboat):
     """Page skipping seeks without reading (reference reader.rs:91-147)."""
     import numpy as np
 
-    from strawboat_tpu.read.deserialize import decode_simple_page
-    from strawboat_tpu.read.reader import open_readers
+    from strawboat.read.deserialize import decode_simple_page
+    from strawboat.read.reader import open_readers
 
     table, metas = _write(tmp_strawboat)
     field = table.schema.field(0)

@@ -4,9 +4,9 @@ import numpy as np
 import pyarrow as pa
 import pytest
 
-from strawboat_tpu.api import write_file
-from strawboat_tpu.codecs import WriteOptions
-from strawboat_tpu.constants import Compression
+from strawboat.api import write_file
+from strawboat.codecs import WriteOptions
+from strawboat.constants import Compression
 
 
 def _opts():
@@ -38,7 +38,7 @@ def sort_file(tmp_strawboat):
 def test_orderable_u64_matches_numpy_order():
     import jax.numpy as jnp
 
-    from strawboat_tpu.exec.sort import orderable_u64
+    from strawboat.exec.sort import orderable_u64
 
     rng = np.random.default_rng(0)
     ints = rng.integers(-(10**12), 10**12, 500).astype(np.int64)
@@ -60,7 +60,7 @@ def test_orderable_u64_matches_numpy_order():
 def test_sort_indices_multicol_and_mask():
     import jax.numpy as jnp
 
-    from strawboat_tpu.exec.sort import sort_indices
+    from strawboat.exec.sort import sort_indices
 
     rng = np.random.default_rng(1)
     a = rng.integers(0, 5, 1000).astype(np.int64)
@@ -85,7 +85,7 @@ def test_sort_indices_multicol_and_mask():
 def test_topk_fast_path_matches_full_sort():
     import jax.numpy as jnp
 
-    from strawboat_tpu.exec.sort import sort_indices
+    from strawboat.exec.sort import sort_indices
 
     rng = np.random.default_rng(2)
     v = rng.integers(-(10**9), 10**9, 4096).astype(np.int64)
@@ -96,7 +96,7 @@ def test_topk_fast_path_matches_full_sort():
 
 
 def test_query_order_by_limit(sort_file):
-    from strawboat_tpu.exec import Query, col
+    from strawboat.exec import Query, col
 
     path, table = sort_file
     res, taken_valid = (
@@ -116,7 +116,7 @@ def test_query_order_by_limit(sort_file):
 
 
 def test_query_grouped_avg_ordered(sort_file):
-    from strawboat_tpu.exec import Query
+    from strawboat.exec import Query
 
     path, table = sort_file
     res = (
@@ -143,7 +143,7 @@ def test_query_grouped_avg_ordered(sort_file):
 
 
 def test_query_distinct(sort_file):
-    from strawboat_tpu.exec import Query
+    from strawboat.exec import Query
 
     path, table = sort_file
     res = Query(path).select("g").distinct(num_groups=64).run()
@@ -153,7 +153,7 @@ def test_query_distinct(sort_file):
 
 
 def test_query_limit_only_with_filter(sort_file):
-    from strawboat_tpu.exec import Query, col
+    from strawboat.exec import Query, col
 
     path, table = sort_file
     res, taken = Query(path).select("u").filter(col("u") < 1000).limit(5).run()
@@ -169,7 +169,7 @@ def test_query_limit_only_with_filter(sort_file):
 def test_order_by_string_is_lexical(tmp_strawboat):
     """Dictionary codes are first-occurrence order; ORDER BY must still be
     byte-lexical (round-1 advisor finding: code-order sorts were wrong)."""
-    from strawboat_tpu.exec import Query
+    from strawboat.exec import Query
 
     rng = np.random.default_rng(13)
     # first occurrences deliberately non-lexical: "zeta" gets code 0
@@ -203,7 +203,7 @@ def test_order_by_string_is_lexical(tmp_strawboat):
 def test_projection_pushdown_under_filter(tmp_strawboat):
     """Filtered+grouped queries decode only referenced columns (round-1
     verdict: filters used to force scanning every column)."""
-    from strawboat_tpu.exec import Query, col
+    from strawboat.exec import Query, col
 
     rng = np.random.default_rng(17)
     n = 1000
@@ -232,7 +232,7 @@ def test_projection_pushdown_under_filter(tmp_strawboat):
 
 
 def test_select_does_not_leak_order_column(sort_file):
-    from strawboat_tpu.exec import Query
+    from strawboat.exec import Query
 
     path, table = sort_file
     res, taken = Query(path).select("i").order_by("f").limit(10).run()

@@ -5,12 +5,12 @@ import numpy as np
 import pyarrow as pa
 import pytest
 
-from strawboat_tpu.api import write_file
-from strawboat_tpu.codecs import WriteOptions
-from strawboat_tpu.constants import Compression
-from strawboat_tpu.read.reader import open_readers, read_meta
-from strawboat_tpu.stat import stat_simple
-from strawboat_tpu.util import env
+from strawboat.api import write_file
+from strawboat.codecs import WriteOptions
+from strawboat.constants import Compression
+from strawboat.read.reader import open_readers, read_meta
+from strawboat.stat import stat_simple
+from strawboat.util import env
 
 
 @pytest.fixture(autouse=True)

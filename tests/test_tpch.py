@@ -5,8 +5,8 @@ lineitem with utf8 flag columns, device scan with zone-map pruning, full Q1
 import numpy as np
 import pytest
 
-from strawboat_tpu.api import write_file
-from strawboat_tpu.benchsuite.tpch import (
+from strawboat.api import write_file
+from strawboat.benchsuite.tpch import (
     generate_lineitem,
     q1,
     q1_dense,
@@ -16,9 +16,9 @@ from strawboat_tpu.benchsuite.tpch import (
     q6_numpy_reference,
     q6_pruning_predicates,
 )
-from strawboat_tpu.codecs import WriteOptions
-from strawboat_tpu.constants import Compression
-from strawboat_tpu.exec import scan_file
+from strawboat.codecs import WriteOptions
+from strawboat.constants import Compression
+from strawboat.exec import scan_file
 
 
 @pytest.fixture(scope="module")
@@ -88,7 +88,7 @@ def test_q1_full(lineitem_file):
 
 
 def test_q1_dense_path(lineitem_file):
-    """MXU dense-code path produces identical results."""
+    """Dense-code matmul path produces identical results."""
     path, table = lineitem_file
     dt = scan_file(path)
     exp = q1_numpy_reference(table)
@@ -132,7 +132,7 @@ def test_q1_query_api(lineitem_file):
 
 def test_string_filter_on_flags(lineitem_file):
     """utf8 literal predicates translate through the device dictionary."""
-    from strawboat_tpu.exec import Query, col
+    from strawboat.exec import Query, col
 
     path, table = lineitem_file
     res = Query(path).filter(col("l_returnflag") == "R").agg(
@@ -143,7 +143,7 @@ def test_string_filter_on_flags(lineitem_file):
 
 
 def test_q3_like_join(tmp_path):
-    from strawboat_tpu.benchsuite.tpch import generate_orders, q3_like
+    from strawboat.benchsuite.tpch import generate_orders, q3_like
 
     li = generate_lineitem(0.01, rows=40_000)
     orders = generate_orders(0.01, rows=10_000)

@@ -7,10 +7,10 @@ import numpy as np
 import pyarrow as pa
 import pytest
 
-from strawboat_tpu.api import read_table, write_file
-from strawboat_tpu.codecs import WriteOptions
-from strawboat_tpu.constants import Compression
-from strawboat_tpu.exec import scan_file
+from strawboat.api import read_table, write_file
+from strawboat.codecs import WriteOptions
+from strawboat.constants import Compression
+from strawboat.exec import scan_file
 
 
 def _write(path, table, **kw):
@@ -27,7 +27,7 @@ def _write(path, table, **kw):
 
 
 def _scan_no_host_structured(path, monkeypatch):
-    from strawboat_tpu.exec import scan as scan_mod
+    from strawboat.exec import scan as scan_mod
 
     def boom(buf, pos, length, dtype):
         raise AssertionError("page fell back to host structured decode")
@@ -71,14 +71,14 @@ def test_delta_bitpack_device(tmp_path, monkeypatch):
     got = np.asarray(dt["a"].values)
     assert np.array_equal(got, vals)
     # confirm the file really used delta pages
-    from strawboat_tpu.codecs import read_header
-    from strawboat_tpu.read.reader import infer_schema, read_meta
+    from strawboat.codecs import read_header
+    from strawboat.read.reader import infer_schema, read_meta
 
     with open(path, "rb") as f:
         infer_schema(f)
         metas = read_meta(f)
     fb = np.memmap(path, dtype=np.uint8, mode="r")
-    from strawboat_tpu.read.levels import read_validity
+    from strawboat.read.levels import read_validity
 
     buf = fb[metas[0].offset : metas[0].offset + metas[0].pages[0].length]
     _v, p = read_validity(buf, 0, metas[0].pages[0].num_values)
@@ -108,7 +108,7 @@ def test_dict_with_varying_index_widths_device(tmp_path, monkeypatch):
 def test_tpch_shaped_scan_matches_host_reader(tmp_path):
     """End-to-end: the lineitem column mix (dict/delta/bp/lz4) scans to the
     same rows as the host batch reader."""
-    from strawboat_tpu.benchsuite.tpch import generate_lineitem
+    from strawboat.benchsuite.tpch import generate_lineitem
 
     table = generate_lineitem(scale=1.0, rows=30_000)
     path = str(tmp_path / "li.str")
